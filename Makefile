@@ -3,13 +3,16 @@
 
 PY ?= python3
 
-.PHONY: test test-fast bench bench-all bench-matrix baseline roofline cpp cpp-example toy clean
+.PHONY: test test-fast test-gpu bench bench-all smoke baseline cpp cpp-example toy clean
 
 test:
 	$(PY) -m pytest tests/ -x -q
 
 test-fast:   # core correctness in <3 min; the slow marker holds the depth tests
 	$(PY) -m pytest tests/ -x -q -m "not slow"
+
+test-gpu:    # the tests marked gpu, on the card (they skip without one)
+	JAX_PLATFORMS=cuda,cpu $(PY) -m pytest tests/ -x -q -m gpu
 
 test-slow:   # just the depth tests (fuzz, long-series, heavy AD, sharded scans)
 	$(PY) -m pytest tests/ -x -q -m "slow"
@@ -20,16 +23,13 @@ bench:
 bench-all:
 	$(PY) bench.py --all
 
-bench-matrix:   # full pinned matrix (--all, --niter 20, --bf16) -> docs/BENCH_ALL.json
-	$(PY) tools/pin_bench_matrix.py "$$(date -u +%Y-%m-%dT%H:%MZ) $$(git rev-parse --short HEAD)"
+smoke:   # main path + kernels on the GPU, checked against the references
+	$(PY) chip_smoke.py
 
 baseline:   # measured single-core CPU baseline (C transcription)
 	cc -O3 -march=native -ffast-math -o bench_baseline/coare36_skin_baseline \
 	  bench_baseline/coare36_skin_baseline.c -lm
 	./bench_baseline/coare36_skin_baseline 200000 5
-
-roofline:   # op census + VPU ceiling -> docs/ROOFLINE.json (run on TPU)
-	$(PY) tools/run_roofline.py
 
 cpp:
 	cmake -S cpp -B cpp/build -G Ninja -DCMAKE_BUILD_TYPE=Release

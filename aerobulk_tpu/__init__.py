@@ -1,4 +1,4 @@
-"""aerobulk_tpu — TPU-native air-sea turbulent-flux framework.
+"""aerobulk_tpu — air-sea turbulent-flux framework for GPUs (JAX/XLA/Pallas).
 
 A ground-up JAX/XLA re-design of the capabilities of AeroBulk
 (github.com/brodeau/aerobulk): bulk aerodynamic computation of wind stress,

@@ -1,6 +1,6 @@
 """Andreas et al. (2015) spray-flux bulk algorithm, vectorized JAX.
 
-TPU-native re-implementation of the reference ``TURB_ANDREAS``
+Vectorized re-implementation of the reference ``TURB_ANDREAS``
 (mod_blk_andreas.f90:66-272).  Distinctives: a direct u*(UN10) closure
 instead of a drag-coefficient law, LKB scalar roughness (as COARE 2.5), a
 Brodeau guard forcing u* = sqrt(Cx_min)*U in very stable / weak-wind

@@ -1,12 +1,12 @@
 """COARE 3.0 / 3.6 bulk algorithms with cool-skin & warm-layer, JAX.
 
-TPU-native re-implementation of ``TURB_COARE3P0``
+Vectorized re-implementation of ``TURB_COARE3P0``
 (mod_blk_coare3p0.f90:106-358) and ``TURB_COARE3P6``
 (mod_blk_coare3p6.f90:123-413).  Both share one skeleton and differ only in
 their Charnock closure and scalar-roughness law, so a single parameterized
 function replaces the reference's two near-identical modules.
 
-Key TPU-first differences from the reference:
+Key differences from the reference:
   * the per-point scalar loops become whole-array ``jnp`` math;
   * the warm-layer module state becomes an explicit :class:`SkinState`
     argument/return (shardable, scan-able);
@@ -34,7 +34,7 @@ from .base import FluxResult
 _ZI0 = 600.0          # ABL scale height          (mod_blk_coare3p6.f90:61)
 _ZETA_ABS_MAX = 50.0  # |zeta| cap                (mod_blk_coare3p6.f90:63)
 # constant divides folded into multiplies (<=1 ulp each, 1e-12
-# oracle-gated; a VPU divide costs multiple issue slots — ROOFLINE.json)
+# oracle-gated; a divide costs several multiplies' worth of issue)
 _M_ZI0_OV_K = -_ZI0 / c.vkarmn
 _INV_K = 1.0 / c.vkarmn
 _INV_G = 1.0 / c.grav

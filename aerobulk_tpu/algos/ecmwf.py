@@ -1,6 +1,6 @@
 """ECMWF / IFS (Cy31r1 / Cy40r1) bulk algorithm, vectorized JAX.
 
-TPU-native re-implementation of the reference ``TURB_ECMWF``
+Vectorized re-implementation of the reference ``TURB_ECMWF``
 (mod_blk_ecmwf.f90:63-383).  Unlike COARE, the IFS scheme iterates on
 ``Ri_bulk -> 1/L = Ri * Fm^2 / Fh / zu`` (Eq. 3.23, IFS doc Cy40r1) instead
 of updating u* directly, keeps separate roughness lengths z0 / z0t / z0q,

@@ -1,12 +1,12 @@
 """NCAR / Large & Yeager (2004, 2008) bulk algorithm, vectorized JAX.
 
-TPU-native re-implementation of the reference ``TURB_NCAR``
+Vectorized re-implementation of the reference ``TURB_NCAR``
 (``mod_blk_ncar.f90:57-240``): no skin scheme, no gustiness (wind floored
 at 0.5 m/s), neutral-coefficient closures iterated via L&Y Eq. 10.
 
 The fixed-point iteration is a statically-unrolled Python loop: ``niter``
 is a compile-time constant, so XLA fuses the whole solve (~100 elementwise
-ops x niter) into a single TPU kernel over the grid.
+ops x niter) into a single device kernel over the grid.
 """
 
 from __future__ import annotations

@@ -551,8 +551,7 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
                skin_state: Optional[SkinState] = None,
                isecday_utc=None, lon=None, remat: bool = False,
                backend: str = "jit", batch_records: bool = False,
-               fused_block=(32, 256), fused_interpret=None,
-               fused_grad_backend="jit"):
+               fused_interpret: bool = False):
     """Scan :func:`flux_step` over a time axis.
 
     ``forcing`` maps input names (sst, t_zt, hum_zt, U_zu, V_zu, slp,
@@ -567,24 +566,20 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
     ``backend`` selects the per-step implementation:
       * ``"jit"``  (default) — the plain XLA path; the semantics
         reference, differentiable, works on every platform.
-      * ``"fused"`` — the single-pass Pallas TPU kernel
-        (:func:`aerobulk_tpu.kernels.fused.fused_flux_step`), ~1.5x
-        faster per chip on real TPU hardware for the skin-enabled
-        0.25-degree workload; requires 2-D (y, x) grids, a skin-capable
-        config with ``use_skin=True``, and rad_sw/rad_lw in the forcing.
+      * ``"fused"`` — the single-pass GPU kernel
+        (:func:`aerobulk_tpu.kernels.fused.fused_flux_step`); requires
+        a skin-capable config with ``use_skin=True`` and rad_sw/rad_lw
+        in the forcing, and a GPU: on any other platform it raises
+        unless ``fused_interpret=True`` asks for the Pallas interpreter.
         Differentiable: the kernel carries a custom VJP whose backward
         pass is AD of the jit path (kernels/fused.py ``_fused_step_ad``).
         Returns the reduced output set (QL, QH, Tau_x, Tau_y, Evap, T_s;
-        ``Tau`` and ``rho_a``/``diag`` are None).  ``fused_block`` /
-        ``fused_interpret`` / ``fused_grad_backend`` are forwarded to
-        the kernel (``fused_grad_backend="pallas"`` runs each step's
-        backward pass as a fused Pallas kernel too — the speed path for
-        gradients through the scan).
+        ``Tau`` and ``rho_a``/``diag`` are None).
 
     ``batch_records=True`` (stateless configs only) computes every record
     in one vectorized call instead of scanning — the fast way to run
     station/buoy series with a no-skin algorithm.  Combine with
-    ``backend="fused"`` to solve the whole batch in one stateless Pallas
+    ``backend="fused"`` to solve the whole batch in one stateless GPU
     kernel launch (``kernels.fused.fused_bulk_step``; reduced output
     set like the skin-path fused backend).
     """
@@ -606,9 +601,12 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
                              "stateless (use_skin=False) config — skin "
                              "state couples consecutive records")
         if backend == "fused":
-            # stateless fused Pallas kernel: the whole (nt, ...) batch is
-            # flattened onto VPU tiles and solved in one kernel launch
+            # stateless fused kernel: the whole (nt, ...) batch is
+            # flattened into tiles and solved in one kernel launch
             # (kernels/fused.py fused_bulk_step)
+            from .kernels.fused import fused_bulk_step, require_gpu
+            require_gpu("run_series(batch_records=True, backend='fused')",
+                        fused_interpret)
             if opt or lon is not None:
                 # the jit batch path forwards rad_sw/rad_lw/lon to
                 # flux_step (which ignores them for stateless configs);
@@ -620,10 +618,8 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
                     f"ignoring {opt + (['lon'] if lon is not None else [])}"
                     " — stateless configs use neither (radiation/lon only "
                     "drive the skin schemes)", stacklevel=2)
-            from .kernels.fused import fused_bulk_step
             QL, QH, Tau_x, Tau_y, Evap, T_s = fused_bulk_step(
-                cfg, *(forcing[n] for n in names), block=fused_block,
-                interpret=fused_interpret)
+                cfg, *(forcing[n] for n in names), interpret=fused_interpret)
             out = FluxOutput(QL=QL, QH=QH, Tau=None, Tau_x=Tau_x,
                              Tau_y=Tau_y, Evap=Evap, T_s=T_s,
                              rho_a=None, diag=None)
@@ -649,20 +645,19 @@ def run_series(cfg: AeroBulkConfig, forcing: dict,
         isecday_utc = jnp.zeros((nt,), jnp.int32)   # unused by the config
 
     if backend == "fused":
-        from .kernels.fused import fused_flux_step
+        from .kernels.fused import fused_flux_step, require_gpu
         if not cfg.use_skin or "rad_sw" not in forcing \
                 or "rad_lw" not in forcing:
             raise ValueError("run_series(backend='fused') needs a skin "
                              "config and rad_sw/rad_lw forcing")
+        require_gpu("run_series(backend='fused')", fused_interpret)
 
         def body(state, xs):
             args, isd = xs
             (QL, QH, Tau_x, Tau_y, Evap, T_s), state = fused_flux_step(
                 cfg, *(args[n] for n in names), args["rad_sw"],
                 args["rad_lw"], lon=lon, isecday_utc=isd,
-                skin_state=state, block=fused_block,
-                interpret=fused_interpret,
-                grad_backend=fused_grad_backend)
+                skin_state=state, interpret=fused_interpret)
             return state, FluxOutput(QL=QL, QH=QH, Tau=None, Tau_x=Tau_x,
                                      Tau_y=Tau_y, Evap=Evap, T_s=T_s,
                                      rho_a=None, diag=None)

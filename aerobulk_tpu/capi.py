@@ -44,11 +44,13 @@ def model_buffers(jt, Nt, calgo, zt, zu, sst, t_zt, hum_zt, U_zu, V_zu, slp,
 
     import jax
     # The C binding contract is float64 end-to-end (the reference core is
-    # compiled with -fdefault-real-8), and TPUs have no native fp64 — so
-    # this path defaults to the host CPU backend.  Set
-    # AEROBULK_CAPI_PLATFORM=tpu (with fp32 inputs) to opt into the chip.
+    # compiled with -fdefault-real-8).  A coupler calls this once per rank
+    # and time step on a small subdomain, where the host CPU backend
+    # answers in fp64 without a device round trip, so it is the default.
+    # AEROBULK_CAPI_PLATFORM=gpu opts into the GPU (fp64 there too).
+    platform = os.environ.get("AEROBULK_CAPI_PLATFORM", "cpu")
     jax.config.update("jax_platforms",
-                      os.environ.get("AEROBULK_CAPI_PLATFORM", "cpu"))
+                      "cuda" if platform == "gpu" else platform)
     jax.config.update("jax_enable_x64", True)
     import dataclasses
 

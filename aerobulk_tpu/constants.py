@@ -8,7 +8,7 @@ rt0 = 273.15 where 273.16 would be "physically correct"
 
 All constants are plain Python floats: JAX treats them as weakly-typed
 scalars, so they follow the dtype of the arrays they combine with (fp64 for
-validation runs, fp32/bf16 for TPU speed runs).
+validation runs, fp32 for GPU speed runs).
 """
 
 import math

@@ -2,11 +2,11 @@
 
 The reference has no parallelism at all — it is a single-threaded per-rank
 library whose host GCM decomposes the domain (SURVEY.md §2.4).  The
-TPU-native equivalent is pure data parallelism over the (y, x) grid via
+equivalent here is pure data parallelism over the (y, x) grid via
 ``jax.sharding``: the flux computation is pointwise (no stencils, no halo
-exchange), so a NamedSharding over grid axes scales over ICI/DCN with zero
-collectives in the forward pass.  The warm-layer :class:`SkinState` shards
-identically to the inputs and never needs communication.
+exchange), so a NamedSharding over grid axes scales over the devices with
+zero collectives in the forward pass.  The warm-layer :class:`SkinState`
+shards identically to the inputs and never needs communication.
 """
 
 from __future__ import annotations
@@ -27,12 +27,13 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Initialize multi-host JAX (thin ``jax.distributed`` wrapper).
 
-    Call once per host before building the mesh; afterwards
-    ``jax.devices()`` spans the whole pod slice and
+    Call once per process before building the mesh; afterwards
+    ``jax.devices()`` spans every process's devices and
     :func:`make_grid_mesh` + :func:`grid_sharding` work unchanged — the
     flux computation needs no further multi-host awareness (it compiles
-    collective-free, docs/SCALING.md).  No-ops on single-process setups
-    with auto-detectable environments (GKE/Cloud TPU set the env vars).
+    collective-free, docs/SCALING.md).  Pass ``coordinator_address``
+    (e.g. ``"localhost:1234"``), ``num_processes`` and ``process_id``
+    unless the cluster environment provides them.
     """
     kw = {}
     if coordinator_address is not None:
@@ -150,9 +151,8 @@ def unpad_grid(tree, ny: int, nx: int):
 
 def sharded_fused_flux_step(mesh: Mesh, cfg, sst, t_zt, hum_zt, U_zu, V_zu,
                             slp, rad_sw, rad_lw, lon=None, isecday_utc=43200,
-                            skin_state=None, block=(32, 256),
-                            interpret=None):
-    """Run the fused Pallas kernel per-device over a grid mesh.
+                            skin_state=None, interpret: bool = False):
+    """Run the fused GPU kernel per-device over a grid mesh.
 
     ``shard_map`` hands each device its local (y, x) shard; the kernel is
     launched independently on every device (the computation is pointwise,
@@ -167,8 +167,9 @@ def sharded_fused_flux_step(mesh: Mesh, cfg, sst, t_zt, hum_zt, U_zu, V_zu,
     from jax import shard_map
 
     from .api import init_skin_state
-    from .kernels.fused import fused_flux_step
+    from .kernels.fused import fused_flux_step, require_gpu
 
+    require_gpu("sharded_fused_flux_step", interpret)
     if lon is None:
         lon = jax.numpy.zeros_like(sst)
     if skin_state is None:
@@ -181,22 +182,21 @@ def sharded_fused_flux_step(mesh: Mesh, cfg, sst, t_zt, hum_zt, U_zu, V_zu,
         sst, t_zt, hum_zt, U_zu, V_zu, slp, rad_sw, rad_lw, lon = map(
             pad, (sst, t_zt, hum_zt, U_zu, V_zu, slp, rad_sw, rad_lw, lon))
         skin_state = jax.tree_util.tree_map(pad, skin_state)
-    isd = jax.numpy.broadcast_to(
-        jax.numpy.asarray(isecday_utc, sst.dtype), sst.shape)
+    isd = jax.numpy.asarray(isecday_utc, sst.dtype)
 
     spec = P("gy", "gx")
 
     # check_vma=False: pallas_call inside shard_map cannot declare output
     # varying-across-mesh info; the kernel is pointwise so nothing is
     # replicated anyway.
-    @partial(shard_map, mesh=mesh, in_specs=spec, out_specs=spec,
-             check_vma=False)
+    @partial(shard_map, mesh=mesh, in_specs=(spec,) * 9 + (P(),) + (spec,) * 4,
+             out_specs=spec, check_vma=False)
     def local_step(sst, t_zt, hum_zt, U_zu, V_zu, slp, rsw, rlw, lon, isd,
                    dT_wl, Hz_wl, Qnt_ac, Tau_ac):
         from .skin import SkinState
         outs, ns = fused_flux_step(
             cfg, sst, t_zt, hum_zt, U_zu, V_zu, slp, rsw, rlw, lon=lon,
-            isecday_utc=isd, block=block, interpret=interpret,
+            isecday_utc=isd, interpret=interpret,
             skin_state=SkinState(dT_wl=dT_wl, Hz_wl=Hz_wl,
                                  Qnt_ac=Qnt_ac, Tau_ac=Tau_ac))
         return (*outs, *ns)
@@ -214,20 +214,20 @@ def sharded_fused_flux_step(mesh: Mesh, cfg, sst, t_zt, hum_zt, U_zu, V_zu,
 
 def sharded_run_series(mesh: Mesh, cfg, forcing: dict, isecday_utc=None,
                        lon=None, skin_state=None, backend: str = "jit",
-                       remat: bool = False, block=(32, 256),
-                       interpret=None):
+                       remat: bool = False, interpret: bool = False):
     """:func:`aerobulk_tpu.api.run_series` over a grid mesh — the
     PRODUCTION multi-chip shape: the time scan runs *device-local* inside
     one ``shard_map``, so the warm-layer state carries across records
     entirely on-chip (zero collectives per step, zero per-step shard_map
-    re-entry).  This is the TPU analogue of the reference's year-long
-    stateful time loop (test_aerobulk_buoy_series_oce.f90:364-537) run on
-    a decomposed domain.
+    re-entry).  This is the reference's year-long stateful time loop
+    (test_aerobulk_buoy_series_oce.f90:364-537) run on a decomposed
+    domain.
 
     ``forcing`` maps names to ``(nt, ny, nx)`` arrays sharded (or
     shardable) over the trailing grid axes; time stays replicated.
-    ``backend="fused"`` scans the fused Pallas kernel per device (the
-    TPU speed path; ``block``/``interpret`` forwarded).  Grids that do
+    ``backend="fused"`` scans the fused GPU kernel per device
+    (``interpret=True`` runs it in the Pallas interpreter off the GPU).
+    Grids that do
     not divide evenly by the mesh shape (the real 0.25-degree grid is
     721x1440; 721 = 7*103) are edge-padded to shard boundaries and the
     padding sliced away — note uneven global arrays cannot be laid out
@@ -243,6 +243,9 @@ def sharded_run_series(mesh: Mesh, cfg, forcing: dict, isecday_utc=None,
 
     from .api import init_skin_state, run_series
 
+    if backend == "fused":
+        from .kernels.fused import require_gpu
+        require_gpu("sharded_run_series(backend='fused')", interpret)
     grid_shape = forcing["sst"].shape[1:]
     ny, nx = grid_shape
     if skin_state is None:
@@ -262,9 +265,7 @@ def sharded_run_series(mesh: Mesh, cfg, forcing: dict, isecday_utc=None,
     in_specs = ({k: fspec for k in forcing}, P(None), gspec,
                 jax.tree_util.tree_map(lambda _: gspec, skin_state))
 
-    kw = dict(backend=backend, remat=remat)
-    if backend == "fused":
-        kw.update(fused_block=block, fused_interpret=interpret)
+    kw = dict(backend=backend, remat=remat, fused_interpret=interpret)
 
     # check_vma=False for the fused backend: pallas_call inside shard_map
     # cannot declare varying-across-mesh outputs (pointwise workload, so

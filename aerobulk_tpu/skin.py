@@ -9,7 +9,7 @@ ECMWF symbol-name collision of the reference disappears.
 
 All data-dependent early exits of ``WL_COARE`` (``l_exit``,
 ``l_destroy_wl``, the inner ``EXIT`` on ``zqac<=0``) are rewritten as masked
-branch-free math so the whole scheme stays inside one fused XLA/TPU kernel.
+branch-free math so the whole scheme stays inside one fused kernel.
 
 Functions cite the reference as ``mod_skin_{coare,ecmwf}.f90:LINE``.
 """
@@ -186,7 +186,7 @@ def cs_ecmwf(Qsw, Qnsol, ustar, sst):
 def _wl_coare_absorption(Hwl):
     """Fraction of solar flux absorbed in a warm layer of depth ``Hwl``
     (mod_skin_coare.f90:167-168).  ``exp(-H/d)`` -> ``exp(H * (-1/d))``:
-    one constant multiply instead of a VPU divide per band (<=1 ulp,
+    one constant multiply instead of a divide per band (<=1 ulp,
     1e-12 oracle-gated); the trailing ``/Hwl`` is a true divide."""
     return 1.0 - (0.28 * 0.014 * (1.0 - jnp.exp(Hwl * (-1.0 / 0.014)))
                   + 0.27 * 0.357 * (1.0 - jnp.exp(Hwl * (-1.0 / 0.357)))

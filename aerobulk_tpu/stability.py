@@ -19,7 +19,6 @@ import math
 import jax.numpy as jnp
 
 from .constants import rpi
-from .math_compat import arctan
 from .thermo import step
 
 __all__ = [
@@ -45,7 +44,7 @@ def _pos_or_one(a):
 
     The naive form is forward-correct (0 * finite = 0) but its backward
     is ``inf slope x zero cotangent = NaN``; this bit a real production
-    gradient at exactly one 0.25-degree grid point in 1.04e6 (fp32 TPU
+    gradient at exactly one 0.25-degree grid point in 1.04e6 (fp32 device
     rounding landed z on the knife; round 5, found by the on-device
     grad-parity gate).  Substituting 1 under the root changes only
     masked-branch values (the mask is exactly 0 there), so every psi
@@ -65,8 +64,8 @@ def psi_m_coare(zeta):
     """COARE psi_m (mod_common_coare.f90:217-254).
 
     Strength reductions (each <=1-2 ulp vs the literal form, gated by
-    the 1e-12 oracle tests; docs/ROOFLINE.json shows the kernel is
-    VPU-issue-bound and divides cost multiple slots):
+    the 1e-12 oracle tests; the step is compute-bound and divides cost
+    several multiplies):
       * ``|1-15z|**0.25`` -> sqrt(sqrt(.));
       * ``/2`` -> ``*0.5`` (exact), ``/3`` and ``/sqrt(3)`` -> constant
         multiplies;
@@ -74,10 +73,10 @@ def psi_m_coare(zeta):
     phi_m = jnp.sqrt(jnp.sqrt(_pos_or_one(jnp.abs(1.0 - 15.0 * zeta))))
     psi_k = (2.0 * jnp.log((1.0 + phi_m) * 0.5)
              + jnp.log((1.0 + phi_m * phi_m) * 0.5)
-             - 2.0 * arctan(phi_m) + 0.5 * rpi)
+             - 2.0 * jnp.arctan(phi_m) + 0.5 * rpi)
     phi_c = _pos_or_one(jnp.abs(1.0 - 10.15 * zeta)) ** 0.3333
     psi_c = (1.5 * jnp.log((1.0 + phi_c + phi_c * phi_c) * _INV_3)
-             - 1.7320508 * arctan((1.0 + 2.0 * phi_c) * _INV_SQRT3)
+             - 1.7320508 * jnp.arctan((1.0 + 2.0 * phi_c) * _INV_SQRT3)
              + 1.813799447)
     f = zeta * zeta
     f = f / (1.0 + f)
@@ -98,7 +97,7 @@ def psi_h_coare(zeta):
     psi_k = 2.0 * jnp.log((1.0 + phi_h) * 0.5)
     phi_c = _pos_or_one(jnp.abs(1.0 - 34.15 * zeta)) ** 0.3333
     psi_c = (1.5 * jnp.log((1.0 + phi_c + phi_c * phi_c) * _INV_3)
-             - 1.7320508 * arctan((1.0 + 2.0 * phi_c) * _INV_SQRT3)
+             - 1.7320508 * jnp.arctan((1.0 + 2.0 * phi_c) * _INV_SQRT3)
              + 1.813799447)
     f = zeta * zeta
     f = f / (1.0 + f)
@@ -121,7 +120,7 @@ def psi_m_ncar(zeta):
     x = jnp.sqrt(x2)
     psi_unst = (2.0 * jnp.log((1.0 + x) * 0.5)
                 + jnp.log((1.0 + x2) * 0.5)
-                - 2.0 * arctan(x) + rpi * 0.5)
+                - 2.0 * jnp.arctan(x) + rpi * 0.5)
     psi_stab = -5.0 * zeta
     stb = step(zeta)
     return stb * psi_stab + (1.0 - stb) * psi_unst
@@ -153,7 +152,7 @@ def psi_m_ecmwf(zeta):
     x = jnp.sqrt(x2)
     t = 1.0 + x
     psi_unst = (jnp.log(0.125 * t * t * (1.0 + x2))
-                - 2.0 * arctan(x) + 0.5 * rpi)
+                - 2.0 * jnp.arctan(x) + 0.5 * rpi)
     psi_stab = (-2.0 / 3.0 * (zta - zc) * jnp.exp(-0.35 * zta)
                 - zta - 2.0 / 3.0 * zc)
     stb = step(zta)
@@ -192,14 +191,14 @@ def psi_m_andreas(zeta):
     x = jnp.sqrt(x2)
     psi_unst = (2.0 * jnp.log(jnp.abs((1.0 + x) * 0.5))
                 + jnp.log(jnp.abs((1.0 + x2) * 0.5))
-                - 2.0 * arctan(x) + rpi * 0.5)
+                - 2.0 * jnp.arctan(x) + rpi * 0.5)
     xs = _pos_or_one(jnp.abs(1.0 + zta)) ** one_third
     bbm = abs((1.0 - bm) / bm) ** one_third  # scalar B_m
     psi_stab = (-3.0 * am / bm * (xs - 1.0) + am * bbm / (2.0 * bm) * (
         2.0 * jnp.log(jnp.abs((xs + bbm) / (1.0 + bbm)))
         - jnp.log(jnp.abs((xs * xs - xs * bbm + bbm * bbm)
                           / (1.0 - bbm + bbm * bbm)))
-        + 2.0 * sr3 * (arctan((2.0 * xs - bbm) / (sr3 * bbm))
+        + 2.0 * sr3 * (jnp.arctan((2.0 * xs - bbm) / (sr3 * bbm))
                        - math.atan((2.0 - bbm) / (sr3 * bbm)))))
     stb = step(zta)
     return stb * psi_stab + (1.0 - stb) * psi_unst
@@ -250,7 +249,7 @@ def psi_m_ice(zeta):
     (mod_blk_ice_an05.f90:316-360)."""
     x = _pos_or_one(jnp.abs(1.0 - 16.0 * zeta)) ** 0.25
     psi_u = (jnp.log((1.0 + x * x) / 2.0) + 2.0 * jnp.log((1.0 + x) / 2.0)
-             - 2.0 * arctan(x) + 0.5 * rpi)
+             - 2.0 * jnp.arctan(x) + 0.5 * rpi)
     stb = step(zeta)
     return (1.0 - stb) * psi_u + stb * _psi_s_holtslag(zeta)
 
@@ -268,7 +267,7 @@ def psi_m_grachev07(zeta):
     """Grachev-07 psi_m (mod_blk_grachev07.f90:49-70)."""
     x = _pos_or_one(jnp.abs(1.0 - 16.0 * zeta)) ** 0.25
     psi_u = (jnp.log(0.5 * (1.0 + x * x)) + 2.0 * jnp.log(0.5 * (1.0 + x))
-             - 2.0 * arctan(x) + 0.5 * rpi)
+             - 2.0 * jnp.arctan(x) + 0.5 * rpi)
     psi_s = (1.0 + 6.5 * zeta * _pos_or_one(1.0 + zeta) ** 0.3333333
              / jnp.where(zeta < 0.0, 1.0, 1.3 + zeta))
     return jnp.where(zeta < 0.0, psi_u, -psi_s)

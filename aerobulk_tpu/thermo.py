@@ -1,6 +1,6 @@
 """Thermodynamics / physics function library (vectorized JAX).
 
-TPU-native re-implementation of the reference thermo library
+Vectorized re-implementation of the reference thermo library
 (``/root/reference/src/mod_phymbl.f90``).  The reference keeps a scalar and
 a vector variant of every function behind a generic interface; here each
 function is a single pure ``jnp`` function that broadcasts over any shape,
@@ -20,7 +20,6 @@ import math
 import jax.numpy as jnp
 
 from . import constants as c
-from .math_compat import inv_cbrt_1p
 
 __all__ = [
     "fsign", "step", "clip_mag", "nonzero_delta", "pot_temp", "abs_temp", "virt_temp",
@@ -208,7 +207,7 @@ _LOG2_10 = math.log2(10.0)
 
 def _exp10(x):
     """10**x as exp2(x * log2(10)) — one hardware exp2 instead of a
-    generic pow (the costliest VPU primitive, docs/ROOFLINE.json).
+    generic pow (the costliest elementwise primitive).
     Ulp-level identical to libm pow(10, x); the 1e-12 scalar-oracle
     tests gate the substitution."""
     return jnp.exp2(x * _LOG2_10)
@@ -446,34 +445,21 @@ def z0tq_lkb(iflag, Rer, z0):
     """Scalar roughness lengths z0t (iflag=1) / z0q (iflag=2) from the
     roughness Reynolds number, LKB table (mod_phymbl.f90:1635-1701).
 
-    The reference's DO WHILE bin search becomes a branch-free
-    ``searchsorted`` over the 8 fixed intervals.  Out-of-range Re_r
-    saturates at 0.05 m exactly as the reference's -999 sentinel does
-    after its |.| clamp.
+    The reference's DO WHILE bin search becomes a branch-free chain of
+    scalar-constant selects over the 8 fixed (e_j, e_{j+1}] intervals —
+    no table array, so the same code traces into a GPU kernel, which
+    cannot capture array constants.  Out-of-range Re_r saturates at
+    0.05 m exactly as the reference's -999 sentinel does after its |.|
+    clamp.
     """
-    from .math_compat import is_pallas_safe
-
     xa_t, xb_t = _LKB_XA[iflag - 1], _LKB_XB[iflag - 1]
-    if is_pallas_safe():
-        # Mosaic has no gather lowering and Pallas kernels cannot capture
-        # table constants — select the bin coefficients with a chain of
-        # scalar-constant wheres instead (same (e_j, e_{j+1}] bins as the
-        # searchsorted below, identical arithmetic afterwards)
-        xa_s = jnp.full_like(Rer, xa_t[0])
-        xb_s = jnp.full_like(Rer, xb_t[0])
-        for j in range(8):
-            m = (Rer > _LKB_XRAN[j]) & (Rer <= _LKB_XRAN[j + 1])
-            xa_s = jnp.where(m, xa_t[j], xa_s)
-            xb_s = jnp.where(m, xb_t[j], xb_s)
-        val = xa_s * Rer ** xb_s * z0 / Rer
-    else:
-        xa = jnp.asarray(xa_t, Rer.dtype)
-        xb = jnp.asarray(xb_t, Rer.dtype)
-        edges = jnp.asarray(_LKB_XRAN, Rer.dtype)
-        # interval index: count of edges[0..7] strictly below Rer -> 1..8
-        jm = jnp.searchsorted(edges[:-1], Rer, side="left")
-        jm_c = jnp.clip(jm - 1, 0, 7)
-        val = jnp.take(xa, jm_c) * Rer ** jnp.take(xb, jm_c) * z0 / Rer
+    xa = jnp.full_like(Rer, xa_t[0])
+    xb = jnp.full_like(Rer, xb_t[0])
+    for j in range(8):
+        m = (Rer > _LKB_XRAN[j]) & (Rer <= _LKB_XRAN[j + 1])
+        xa = jnp.where(m, xa_t[j], xa)
+        xb = jnp.where(m, xb_t[j], xb)
+    val = xa * Rer ** xb * z0 / Rer
     in_range = (Rer > 0.0) & (Rer < 1000.0)
     val = jnp.where(in_range, val, -999.0)
     return jnp.minimum(jnp.maximum(jnp.abs(val), 1.0e-9), 0.05)
@@ -504,7 +490,7 @@ def skin_layer_coefs(alpha, ustar_a, Qlat=None):
     # x / (usw2*usw2) form has a transpose that squares 1/usw^4 —
     # (7.3e21)^2 overflows fp32 at the ustar clamp floor, and the
     # clamp's zero cotangent then turns the inf into NaN (inf*0) in the
-    # cool-skin BACKWARD pass on TPU (XLA CPU factors the same transpose
+    # cool-skin BACKWARD pass on the device (XLA CPU factors the same transpose
     # differently, which is why only the chip produced it).  Products of
     # reciprocals keep every backward intermediate in fp32 range; the
     # forward value differs by <=1 ulp (oracle tolerance 1e-12 holds).
@@ -526,7 +512,7 @@ def delta_skin_layer_from_coefs(coefs, Qd):
     ztf = step(zQd)
     # 6*(1 + y^(3/4))^(-1/3) with the fractional powers decomposed into
     # sqrt/cbrt chains (mathematically identical, cheaper than generic pow
-    # on the TPU VPU, and a shorter serial dependency chain).  The
+    # and a shorter serial dependency chain).  The
     # MAX(y,0) clamp is active at every *cooling* point (zQd <= 0, i.e.
     # most of the ocean at night), where sqrt's infinite slope at 0 times
     # the clamp's zero cotangent is NaN — the where-guard keeps the value
@@ -535,7 +521,7 @@ def delta_skin_layer_from_coefs(coefs, Qd):
     zy = coef_y * zQd
     pos = zy > 0.0
     zs = jnp.sqrt(jnp.where(pos, zy, 1.0))
-    lamb = 6.0 * inv_cbrt_1p(jnp.where(pos, zs * jnp.sqrt(zs), 0.0))
+    lamb = 6.0 / jnp.cbrt(1.0 + jnp.where(pos, zs * jnp.sqrt(zs), 0.0))
     return (1.0 - ztf) * lamb * ztmp + ztf * jnp.minimum(6.0 * ztmp, 0.007)
 
 

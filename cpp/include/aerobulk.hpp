@@ -1,15 +1,15 @@
 /* aerobulk_tpu C++ binding — same public surface as the reference's
  * include/aerobulk.hpp (aerobulk::model two overloads + algorithm enum),
- * but backed by the TPU-native JAX core instead of the Fortran library.
+ * but backed by the JAX core instead of the Fortran library.
  *
  * The implementation embeds a CPython interpreter and hands the caller's
  * buffers to aerobulk_tpu.capi.model_buffers as zero-copy memoryviews;
- * compute runs wherever JAX is configured (TPU when available, CPU
- * otherwise).  Thread-safety: calls are serialized on the GIL.
+ * compute runs wherever JAX is configured (the host CPU by default,
+ * the GPU with AEROBULK_CAPI_PLATFORM=gpu).  Thread-safety: calls are serialized on the GIL.
  */
 
-#ifndef AEROBULK_TPU_HPP
-#define AEROBULK_TPU_HPP 1
+#ifndef AEROBULK_HPP
+#define AEROBULK_HPP 1
 
 #include <string>
 #include <vector>

@@ -5,7 +5,7 @@ port of the corresponding Fortran routine in /root/reference — the literal
 control flow (IF/DO/EXIT/WHERE), the literal clamps, the literal constants,
 in the reference's evaluation order.  They are deliberately slow,
 unvectorized, and un-JAX: their only job is to define what the reference
-*computes* so the TPU-native vectorized implementations can be asserted
+*computes* so the vectorized JAX implementations can be asserted
 against them at fp64 rtol <= 1e-12 over randomized full-regime inputs
 (tests/test_oracle_ocean.py, tests/test_oracle_ice.py).
 

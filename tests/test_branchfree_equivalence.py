@@ -1,6 +1,6 @@
 """Branch-free masked math vs literal control flow.
 
-The TPU implementation rewrites every data-dependent branch of the
+The JAX implementation rewrites every data-dependent branch of the
 reference as masked arithmetic (warm-layer early-exit cascade, LKB lookup
 loop, skin-layer regimes).  These tests drive the scalar control-flow
 oracles (tests/oracle/, transcribed branch by branch from

@@ -1,7 +1,6 @@
 """fp32 speed-path sanity: single-precision results track the fp64 gates.
 
-TPU production runs fp32 (fp64 is emulated there); the parity gates all
-run fp64.  This bounds the fp32 drift: bulk statistics must stay within
+Production runs on the GPU are fp32; the parity gates all run fp64.  This bounds the fp32 drift: bulk statistics must stay within
 ~0.1% of fp64 away from branch thresholds (individual points near wind
 floors / z0t switches can legitimately diverge further).
 """

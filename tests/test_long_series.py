@@ -9,7 +9,7 @@ Two complements to the 5-day oracle of test_oracle_series.py:
   (test_aerobulk_buoy_series_oce.f90:364-537) compressed to a month;
 
 * an fp32-vs-fp64 drift budget for the warm-layer state across the same
-  720 steps: fp32 is the TPU speed path, and the skin schemes integrate
+  720 steps: fp32 is the GPU speed path, and the skin schemes integrate
   O(1e6 J/m^2) accumulators across time — this pins how much the fp32
   trajectory can wander from the fp64 one over a month of hourly steps
   (measured values recorded in docs/SCALING.md "fp32 drift budget").
@@ -163,7 +163,7 @@ def _fp32_vs_fp64_month(algo):
 
 
 def test_fp32_state_drift_budget_720_steps():
-    """fp32 (the TPU speed path) vs fp64 across 720 hourly stateful steps:
+    """fp32 (the GPU speed path) vs fp64 across 720 hourly stateful steps:
     the warm-layer state must track within the documented budget — i.e.
     fp32's 24-bit mantissa carries the O(1e6 J/m^2) accumulators through a
     month of build/reset cycles without runaway drift.  The daily dawn

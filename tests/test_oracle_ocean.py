@@ -5,7 +5,7 @@ cool-skin schemes, both warm layers, and FIRST_GUESS_COARE.
 This is the strongest reference-parity evidence obtainable without a
 Fortran compiler (VERDICT round-1 item 1): the oracle reproduces the
 reference's control flow statement-by-statement in scalar fp64 Python,
-and the TPU-native vectorized implementations must match it at
+and the vectorized JAX implementations must match it at
 rtol <= 1e-12 over randomized inputs spanning every regime — with branch
 coverage counters asserting the regimes were actually hit.
 

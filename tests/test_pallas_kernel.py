@@ -1,4 +1,4 @@
-"""Parity tests for the fused Pallas kernel (interpret mode on CPU)."""
+"""Parity tests for the fused GPU kernels (Pallas interpreter on CPU)."""
 
 import jax
 import jax.numpy as jnp
@@ -6,24 +6,59 @@ import numpy as np
 import pytest
 
 from aerobulk_tpu.api import AeroBulkConfig, flux_step, init_skin_state
-from aerobulk_tpu.kernels import fused_flux_step
-from aerobulk_tpu.math_compat import arctan, pallas_safe_math
+from aerobulk_tpu.kernels import fused_flux_step, tile_map
 
 
-def test_pallas_safe_arctan_accuracy():
-    x = jnp.asarray(np.concatenate([np.linspace(-40, 40, 50001),
-                                    np.linspace(-1.2, 1.2, 20001)]))
-    with pallas_safe_math():
-        mine = np.asarray(arctan(x))
-    np.testing.assert_allclose(mine, np.arctan(np.asarray(x)), atol=5e-11)
-    # and outside the context it is jnp.arctan (1-ulp agreement with numpy)
-    np.testing.assert_allclose(np.asarray(arctan(x)),
-                               np.arctan(np.asarray(x)), atol=1e-15)
+def _tile_body(a, b, s):
+    return a * b + s, jnp.exp(-a) - b
 
 
-def test_fused_kernel_matches_jit_path():
+@pytest.mark.parametrize("shape,block", [
+    ((1,), 8), ((7,), 8), ((256,), 128), ((13, 140), 128), ((3, 5, 7), 16),
+])
+def test_tile_map_matches_body(shape, block):
+    """Any shape and block: the ragged tail is masked, every output point
+    is the body applied to that point, and shape and dtype come back."""
+    rng = np.random.default_rng(sum(shape) + block)
+    a = jnp.asarray(rng.random(shape))
+    b = jnp.asarray(rng.normal(size=shape))
+    got = tile_map(_tile_body, (a, b), (0.25,), n_out=2, block=block,
+                   interpret=True)
+    for g, e in zip(got, _tile_body(a, b, 0.25)):
+        assert g.shape == shape and g.dtype == a.dtype
+        np.testing.assert_allclose(np.asarray(g), np.asarray(e), rtol=1e-13,
+                                   atol=1e-15)
+
+
+def test_tile_map_grid_is_one_program_per_tile_without_padding():
+    """The wrapper launches cdiv(n, block) Triton programs over the
+    flattened fields and copies nothing: no pad, only free reshapes."""
+    a = jnp.ones((13, 140))
+    jaxpr = jax.make_jaxpr(lambda a: tile_map(
+        lambda x: (x + 1.0,), (a,), n_out=1, block=128, num_warps=2,
+        interpret=True))(a)
+    prims = [e.primitive.name for e in jaxpr.jaxpr.eqns]
+    assert set(prims) == {"reshape", "pallas_call"}, prims
+    call, = (e for e in jaxpr.jaxpr.eqns
+             if e.primitive.name == "pallas_call")
+    assert call.params["grid_mapping"].grid == (-(-13 * 140 // 128),)
+    assert call.params["backend"] == "triton"
+    params = call.params["compiler_params"]["triton"]
+    assert (params.num_warps, params.num_stages) == (2, 1)
+
+
+@pytest.mark.parametrize("block", [0, 100, 384])
+def test_tile_map_rejects_non_power_of_two_block(block):
+    with pytest.raises(ValueError, match="power of two"):
+        tile_map(_tile_body, (jnp.ones(4), jnp.ones(4)), (0.0,), n_out=2,
+                 block=block, interpret=True)
+
+
+@pytest.mark.parametrize("shape", [(16, 256), (5, 37), (129,)])
+def test_fused_kernel_matches_jit_path(shape):
+    """The skin kernel in the Pallas interpreter == the fp64 jit path,
+    on tile-aligned, ragged and rank-1 grids."""
     cfg = AeroBulkConfig(algo="coare3p6", niter=4, use_skin=True)
-    shape = (16, 256)
     rng = np.random.default_rng(11)
     mk = lambda a: jnp.asarray(a)   # fp64 on CPU
     sst = mk(285.0 + 15.0 * rng.random(shape))
@@ -42,9 +77,8 @@ def test_fused_kernel_matches_jit_path():
     ref = (out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s)
 
     p_outs, p_ns = fused_flux_step(cfg, sst, t, q, u, v, slp, rsw, rlw,
-                                   lon=lon, skin_state=st, block=(8, 128),
-                                   interpret=True)
-    # fp64 interpret mode: only the arctan approximation differs (~1e-10)
+                                   lon=lon, skin_state=st, interpret=True)
+    # fp64 interpret mode: the same jnp ops, up to XLA's fusion order
     for name, a, b in zip(("QL", "QH", "Tx", "Ty", "E", "Ts"), ref, p_outs):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                    rtol=5e-7, atol=1e-9, err_msg=name)
@@ -53,7 +87,8 @@ def test_fused_kernel_matches_jit_path():
 
 
 def test_fused_kernel_padding():
-    """Non-tile-aligned shapes go through the pad/unpad path unchanged."""
+    """Shapes that are no multiple of the tile run through the masked
+    tail unchanged."""
     cfg = AeroBulkConfig(algo="coare3p6", niter=2, use_skin=True)
     shape = (13, 140)   # not multiples of (8, 128)
     rng = np.random.default_rng(5)
@@ -68,7 +103,7 @@ def test_fused_kernel_padding():
     rlw = mk(jnp.full(shape, 380.0))
 
     p_outs, _ = fused_flux_step(cfg, sst, t, q, u, v, slp, rsw, rlw,
-                                block=(8, 128), interpret=True)
+                                interpret=True)
     assert p_outs[0].shape == shape
     assert np.all(np.isfinite(np.asarray(p_outs[0])))
 
@@ -98,7 +133,7 @@ def test_run_series_fused_backend_matches_jit():
 
     out_j, st_j = run_series(cfg, forcing, isecday_utc=isd, lon=lon)
     out_f, st_f = run_series(cfg, forcing, isecday_utc=isd, lon=lon,
-                             backend="fused")
+                             backend="fused", fused_interpret=True)
 
     for name in ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s"):
         np.testing.assert_allclose(
@@ -129,8 +164,7 @@ def test_fused_bulk_step_matches_jit_path():
         cfg = AeroBulkConfig(algo=algo, niter=4, use_skin=False)
         out, _ = flux_step(cfg, sst, t, q, u, v, slp)
         ref = (out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s)
-        got = fused_bulk_step(cfg, sst, t, q, u, v, slp, block=(8, 128),
-                              interpret=True)
+        got = fused_bulk_step(cfg, sst, t, q, u, v, slp, interpret=True)
         for name, a, b in zip(("QL", "QH", "Tx", "Ty", "E", "Ts"),
                               got, ref):
             assert a.shape == shape, (algo, name)
@@ -157,8 +191,7 @@ def test_fused_bulk_step_broadcasts_like_jit():
     out, _ = flux_step(cfg, sst, t, jnp.broadcast_to(q, (npts,)),
                        u, jnp.broadcast_to(v, (npts,)),
                        jnp.broadcast_to(slp, (npts,)))
-    got = fused_bulk_step(cfg, sst, t, q, u, v, slp, block=(8, 128),
-                          interpret=True)
+    got = fused_bulk_step(cfg, sst, t, q, u, v, slp, interpret=True)
     assert got[0].shape == (npts,)
     np.testing.assert_allclose(np.asarray(got[0]), np.asarray(out.QL),
                                rtol=5e-7, atol=1e-9)
@@ -193,7 +226,7 @@ def test_run_series_batch_records_fused_backend():
     cfg = AeroBulkConfig(algo="coare3p0", niter=5, use_skin=False)
     ref, _ = run_series(cfg, forcing, batch_records=True)
     got, _ = run_series(cfg, forcing, batch_records=True, backend="fused",
-                        fused_block=(8, 128), fused_interpret=True)
+                        fused_interpret=True)
     np.testing.assert_allclose(np.asarray(got.QL), np.asarray(ref.QL),
                                rtol=5e-7, atol=1e-9)
     np.testing.assert_allclose(np.asarray(got.T_s), np.asarray(ref.T_s),
@@ -235,7 +268,7 @@ def test_sharded_fused_step_matches_unsharded():
     ref_outs, ref_ns = fused_flux_step(
         cfg, fields["sst"], fields["t"], fields["q"], fields["u"],
         fields["v"], fields["slp"], fields["rsw"], fields["rlw"],
-        lon=fields["lon"], skin_state=st, block=(8, 128), interpret=True)
+        lon=fields["lon"], skin_state=st, interpret=True)
 
     mesh = make_grid_mesh(shape=(2, 4))
     sh = shard_grid_inputs(mesh, fields)
@@ -243,7 +276,7 @@ def test_sharded_fused_step_matches_unsharded():
     outs, ns = sharded_fused_flux_step(
         mesh, cfg, sh["sst"], sh["t"], sh["q"], sh["u"], sh["v"], sh["slp"],
         sh["rsw"], sh["rlw"], lon=sh["lon"], skin_state=st_sh,
-        block=(8, 128), interpret=True)
+        interpret=True)
 
     for a, b in zip(outs, ref_outs):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -287,13 +320,13 @@ def test_sharded_run_series_multistep_matches_unsharded():
     sh_lon = shard_grid_inputs(mesh, lon)
 
     for backend in ("jit", "fused"):
-        kw = dict(fused_interpret=True, fused_block=(8, 128)) \
+        kw = dict(fused_interpret=True) \
             if backend == "fused" else {}
         ref_out, ref_st = run_series(cfg, forcing, isecday_utc=isd,
                                      lon=lon, backend=backend, **kw)
         out, st = sharded_run_series(
             mesh, cfg, sh_forcing, isecday_utc=isd, lon=sh_lon,
-            backend=backend, block=(8, 128), interpret=True)
+            backend=backend, interpret=True)
         for name in ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s"):
             np.testing.assert_array_equal(
                 np.asarray(getattr(out, name)),
@@ -315,7 +348,7 @@ def test_sharded_run_series_uneven_grid_matches_unsharded():
     with odd dims, state carried across records.  (Not bitwise on the CPU
     test backend: odd row lengths change which elements land in XLA's
     vectorized-vs-remainder transcendental lanes, a one-ulp effect —
-    measured max rel 9e-16; TPU tiling has no such remainder path.)"""
+    measured max rel 9e-16.)"""
     from aerobulk_tpu.api import run_series
     from aerobulk_tpu.sharding import (make_grid_mesh, shard_grid_inputs,
                                        sharded_run_series)
@@ -343,13 +376,13 @@ def test_sharded_run_series_uneven_grid_matches_unsharded():
     mesh = make_grid_mesh(shape=(2, 4))
 
     for backend in ("jit", "fused"):
-        kw = dict(fused_interpret=True, fused_block=(8, 128)) \
+        kw = dict(fused_interpret=True) \
             if backend == "fused" else {}
         ref_out, ref_st = run_series(cfg, forcing, isecday_utc=isd,
                                      lon=lon, backend=backend, **kw)
         out, st = sharded_run_series(
             mesh, cfg, forcing, isecday_utc=isd, lon=lon,
-            backend=backend, block=(8, 128), interpret=True)
+            backend=backend, interpret=True)
         assert out.QL.shape == (nt,) + shape
         for name in ("QL", "QH", "Tau_x", "Tau_y", "Evap", "T_s"):
             np.testing.assert_allclose(
@@ -401,7 +434,7 @@ def test_sharded_multistep_fused_program_collective_free():
     def prog(fc, isd, lo, st):
         return sharded_run_series(mesh, cfg, fc, isecday_utc=isd, lon=lo,
                                   skin_state=st, backend="fused",
-                                  block=(8, 128), interpret=True)
+                                  interpret=True)
 
     hlo = prog.lower(sh_forcing, isd, sh_lon, st_sh).compile().as_text()
     for coll in ("all-reduce", "all-gather", "collective-permute",
@@ -434,7 +467,7 @@ def test_fused_mixed_step_matches_jit_path():
     net, _, _ = flux_step_mixed(2.0, 10.0, Ts_i, sst, t, q, u, v, slp,
                                 frice, niter=4)
     outs = fused_mixed_step(2.0, 10.0, Ts_i, sst, t, q, u, v, slp, frice,
-                            niter=4, block=(8, 128), interpret=True)
+                            niter=4, interpret=True)
     ref = (net.QL, net.QH, net.Tau, net.Evap, net.T_s)
     for name, a, b in zip(("QL", "QH", "Tau", "Evap", "T_s"), ref, outs):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
@@ -465,7 +498,7 @@ def test_fused_ice_step_matches_jit_path():
                                niter=4, **kw)
         ref = (out.QL, out.QH, out.Tau_x, out.Tau_y, out.Evap, out.T_s)
         outs = fused_ice_step(algo, 2.0, 10.0, Ts_i, t, q, u, v, slp,
-                              niter=4, block=(8, 128), interpret=True,
+                              niter=4, interpret=True,
                               **kw)
         for name, a, b in zip(("QL", "QH", "Tx", "Ty", "Evap", "T_s"),
                               ref, outs):
@@ -494,33 +527,11 @@ def test_fused_ice_step_scalar_algo_kw():
     out, _ = flux_step_ice("ice_easy", 2.0, 10.0, Ts_i, t, q, u, v, slp,
                            niter=4, **kw)
     outs = fused_ice_step("ice_easy", 2.0, 10.0, Ts_i, t, q, u, v, slp,
-                          niter=4, block=(8, 128), interpret=True, **kw)
+                          niter=4, interpret=True, **kw)
     np.testing.assert_allclose(np.asarray(outs[0]), np.asarray(out.QL),
                                rtol=5e-7, atol=1e-9)
     np.testing.assert_allclose(np.asarray(outs[5]), np.asarray(out.T_s),
                                rtol=5e-7, atol=1e-9)
-
-
-@pytest.mark.slow
-def test_tune_fused_blocks_tiny():
-    """The autotuner runs end-to-end (interpret mode, tiny grid) and
-    returns one throughput per candidate block, fastest first."""
-    from aerobulk_tpu.kernels.tune import tune_fused_blocks
-
-    results = tune_fused_blocks(shape=(8, 128), blocks=[(8, 128)],
-                                reps=1, interpret=True)
-    assert len(results) == 1
-    (block, pts), = results
-    assert block == (8, 128) and pts > 0
-
-
-def test_tune_fused_mixed_blocks_tiny():
-    from aerobulk_tpu.kernels.tune import tune_fused_mixed_blocks
-
-    results = tune_fused_mixed_blocks(shape=(8, 128), blocks=[(8, 128)],
-                                      reps=1, niter=2, interpret=True)
-    (block, pts), = results
-    assert block == (8, 128) and pts > 0
 
 
 @pytest.mark.slow
@@ -552,3 +563,65 @@ def test_fused_mixed_simultaneous_parity():
                                rtol=1e-12)
     np.testing.assert_allclose(np.asarray(Tau), np.asarray(net.Tau),
                                rtol=1e-12)
+
+
+def _off_gpu_calls():
+    """Every public way to ask for a fused kernel, as zero-argument
+    callables on tiny inputs (none should get as far as compiling)."""
+    from aerobulk_tpu.api import run_series
+    from aerobulk_tpu.kernels import (fused_bulk_step, fused_ice_step,
+                                      fused_mixed_step)
+    from aerobulk_tpu.pipeline import run_series_pipelined
+    from aerobulk_tpu.sharding import (make_grid_mesh, sharded_fused_flux_step,
+                                       sharded_run_series)
+
+    skin = AeroBulkConfig(algo="coare3p6", niter=2, use_skin=True)
+    bulk = AeroBulkConfig(algo="ncar", niter=2, use_skin=False)
+    x = jnp.full((2, 8), 290.0)
+    forcing = {k: jnp.stack([x, x]) for k in (
+        "sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp", "rad_sw", "rad_lw")}
+    isd = jnp.asarray([0, 3600], jnp.int32)
+    recs = ({k: np.asarray(v[0]) for k, v in forcing.items()}
+            for _ in range(2))
+    mesh = make_grid_mesh(shape=(1, 8))
+    return {
+        "run_series": lambda: run_series(skin, forcing, isecday_utc=isd,
+                                         backend="fused"),
+        "run_series_batch": lambda: run_series(
+            bulk, {k: v for k, v in forcing.items() if "rad" not in k},
+            batch_records=True, backend="fused"),
+        "run_series_pipelined": lambda: run_series_pipelined(
+            skin, recs, chunk=2, backend="fused"),
+        "sharded_run_series": lambda: sharded_run_series(
+            mesh, skin, forcing, isecday_utc=isd, backend="fused"),
+        "sharded_fused_flux_step": lambda: sharded_fused_flux_step(
+            mesh, skin, *(x,) * 8),
+        "fused_flux_step": lambda: fused_flux_step(skin, *(x,) * 8),
+        "fused_bulk_step": lambda: fused_bulk_step(bulk, *(x,) * 6),
+        "fused_ice_step": lambda: fused_ice_step("ice_lg15", 2.0, 10.0,
+                                                 *(x,) * 6),
+        "fused_mixed_step": lambda: fused_mixed_step(2.0, 10.0, *(x,) * 8),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "run_series", "run_series_batch", "run_series_pipelined",
+    "sharded_run_series", "sharded_fused_flux_step", "fused_flux_step",
+    "fused_bulk_step", "fused_ice_step", "fused_mixed_step", "cli"])
+def test_fused_backend_off_gpu_raises(entry, tmp_path):
+    """Off the GPU a fused kernel is refused with an error that names the
+    jit path; nothing falls back to the interpreter unasked."""
+    assert jax.devices()[0].platform != "gpu"
+    if entry == "cli":
+        from aerobulk_tpu.cli import main
+        f = tmp_path / "forcing.npz"
+        np.savez(f, sst=np.full(3, 20.0), t_air=np.full(3, 19.0),
+                 q_air=np.full(3, 0.01), u_wnd=np.full(3, 5.0),
+                 v_wnd=np.zeros(3), rad_sw=np.full(3, 100.0),
+                 rad_lw=np.full(3, 350.0))
+        call = lambda: main(["series", str(f), "--skin", "--backend",  # noqa
+                             "fused", "--out", str(tmp_path / "o.nc")])
+    else:
+        call = _off_gpu_calls()[entry]
+    with pytest.raises(RuntimeError, match="backend='jit'"):
+        call()

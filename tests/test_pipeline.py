@@ -33,6 +33,21 @@ def test_prefetch_yields_all_records():
                                4.0 + 4 * 0.2)
 
 
+def test_prefetch_shards_fields_and_replicates_scalars():
+    """With a mesh sharding, grid fields land sharded and the per-record
+    clock is replicated over the same mesh — nothing is left on device 0
+    alone."""
+    from aerobulk_tpu.sharding import grid_sharding, make_grid_mesh
+
+    mesh = make_grid_mesh(shape=(1, 8))
+    sh = grid_sharding(mesh, 1)
+    rec, = prefetch_to_device(_records(1, 16), sharding=sh)
+    assert rec["sst"].sharding.is_equivalent_to(sh, 1)
+    isd = rec["isecday_utc"]
+    assert len(isd.sharding.device_set) == 8
+    assert isd.sharding.is_fully_replicated
+
+
 def test_pipelined_matches_scan():
     nt, npts = 6, 4
     cfg = AeroBulkConfig(algo="coare3p6", niter=5, use_skin=True)
@@ -97,8 +112,7 @@ def test_chunked_fused_matches_unchunked_fused():
                    for k, v in r.items()}
 
     results, final_state = run_series_pipelined(
-        cfg, recs2d(nt), chunk=2, backend="fused", fused_block=(8, 128),
-        fused_interpret=True)
+        cfg, recs2d(nt), chunk=2, backend="fused", fused_interpret=True)
 
     recs = list(recs2d(nt))
     forcing = {k: jnp.asarray(np.stack([r[k] for r in recs]))
@@ -106,8 +120,7 @@ def test_chunked_fused_matches_unchunked_fused():
                          "rad_sw", "rad_lw")}
     isd = jnp.asarray([r["isecday_utc"] for r in recs], jnp.int32)
     outs, scan_state = run_series(cfg, forcing, isecday_utc=isd,
-                                  backend="fused", fused_block=(8, 128),
-                                  fused_interpret=True)
+                                  backend="fused", fused_interpret=True)
     QL = np.concatenate([r["QL"] for r in results])
     np.testing.assert_allclose(QL, np.asarray(outs.QL), rtol=0, atol=0)
     np.testing.assert_allclose(np.asarray(final_state.dT_wl),
@@ -126,15 +139,14 @@ def test_per_record_fused_backend():
                    for k, v in r.items()}
 
     results, _ = run_series_pipelined(
-        cfg, recs2d(nt), backend="fused", fused_block=(8, 128),
-        fused_interpret=True)
+        cfg, recs2d(nt), backend="fused", fused_interpret=True)
     recs = list(recs2d(nt))
     forcing = {k: jnp.asarray(np.stack([r[k] for r in recs]))
                for k in ("sst", "t_zt", "hum_zt", "U_zu", "V_zu", "slp",
                          "rad_sw", "rad_lw")}
     isd = jnp.asarray([r["isecday_utc"] for r in recs], jnp.int32)
     outs, _ = run_series(cfg, forcing, isecday_utc=isd, backend="fused",
-                         fused_block=(8, 128), fused_interpret=True)
+                         fused_interpret=True)
     np.testing.assert_allclose(
         np.stack([r["QL"] for r in results]), np.asarray(outs.QL),
         rtol=0, atol=0)
@@ -432,14 +444,13 @@ def test_chunked_sharded_fused_uneven_grid_matches_unsharded():
                    for k, v in r.items()}
 
     ref, st_ref = run_series_pipelined(
-        cfg, recs2d(nt), chunk=2, backend="fused", fused_block=(8, 128),
-        fused_interpret=True)
+        cfg, recs2d(nt), chunk=2, backend="fused", fused_interpret=True)
 
     mesh = make_grid_mesh(shape=(2, 4))
     sh = grid_sharding(mesh)
     out, st = run_series_pipelined(
-        cfg, recs2d(nt), chunk=2, backend="fused", fused_block=(8, 128),
-        fused_interpret=True, sharding=sh)
+        cfg, recs2d(nt), chunk=2, backend="fused", fused_interpret=True,
+        sharding=sh)
     assert len(out) == 3
     for a, b in zip(out, ref):
         assert a["QL"].shape == b["QL"].shape == (2, ny, nx)
@@ -455,7 +466,7 @@ def test_chunked_sharded_fused_uneven_grid_matches_unsharded():
     for wire, rtol in (("i16", 1e-4), ("i8d", 1e-3)):
         outw, stw = run_series_pipelined(
             cfg, recs2d(nt), chunk=2, backend="fused",
-            fused_block=(8, 128), fused_interpret=True, sharding=sh,
+            fused_interpret=True, sharding=sh,
             wire=wire)
         for a, b in zip(outw, ref):
             span = float(b["QL"].max() - b["QL"].min()) + 1e-6
@@ -481,8 +492,7 @@ def test_chunked_sharded_fused_resumes_from_user_state():
             yield {k: (v.reshape(ny, nx) if np.ndim(v) else v)
                    for k, v in r.items()}
 
-    kw = dict(chunk=2, backend="fused", fused_block=(8, 128),
-              fused_interpret=True, sharding=sh)
+    kw = dict(chunk=2, backend="fused", fused_interpret=True, sharding=sh)
     _, st_full = run_series_pipelined(cfg, recs2d(0, nt), **kw)
     _, st_a = run_series_pipelined(cfg, recs2d(0, 2), **kw)
     st_a_host = st_a.__class__(*(np.asarray(x) for x in st_a))
@@ -530,7 +540,7 @@ def test_sharded_chunk_step_collective_free_even_grid():
         lambda x: jax.device_put(x, sh),
         init_skin_state(cfg, (ny, nx), jnp.float32))
 
-    step = _make_sharded_chunk_step(cfg, "fused", (8, 128), True, mesh,
+    step = _make_sharded_chunk_step(cfg, "fused", True, mesh,
                                     ("gy", "gx"), (ny, nx), "f32")
     hlo = step.lower(fc, None, isd, lon, st).compile().as_text()
     for coll in ("all-reduce", "all-gather", "collective-permute",
@@ -551,7 +561,7 @@ def test_per_record_fused_sharded_raises():
     sh = grid_sharding(make_grid_mesh(shape=(2, 4)))
     with pytest.raises(ValueError, match="chunk=1"):
         run_series_pipelined(cfg, _records(2, 4), backend="fused",
-                             sharding=sh)
+                             fused_interpret=True, sharding=sh)
 
 
 def test_time_varying_lon_raises():

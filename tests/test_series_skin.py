@@ -151,7 +151,7 @@ def test_skin_state_shards_with_grid():
     # Zero-collective property: the flux step is pointwise over the grid,
     # so the partitioned program must contain NO cross-device communication
     # (SURVEY.md §2.4) — which is what makes weak scaling ~100% efficient
-    # by construction (no halo, no reduction, nothing rides ICI/DCN).
+    # by construction (no halo, no reduction, nothing crosses the interconnect).
     hlo = step.lower(f, state).compile().as_text()
     for coll in ("all-reduce", "all-gather", "collective-permute",
                  "all-to-all", "reduce-scatter", "send", "recv"):

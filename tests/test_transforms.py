@@ -2,7 +2,7 @@
 
 jit / grad / remat / shard_map coverage lives in test_grad.py and the
 sharding tests; this module pins the remaining two transforms a
-TPU-native framework owes its users:
+JAX framework owes its users:
 
 * ``jax.vmap`` over *parameters* — a K-member physics ensemble (K
   Charnock laws) through the full fixed-point solve in one batched

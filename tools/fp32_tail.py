@@ -1,12 +1,12 @@
 """Root-cause the fused-kernel fp32 parity tail (VERDICT r2 item 1).
 
-BENCH_r02 recorded parity_max_by_var QH ~ 7.0 (median 4.4e-5): a handful
-of points diverge by O(1) relative while the bulk sits at fp32 roundoff.
+The on-device parity gate (bench.py) shows a handful of points that
+diverge by O(1) relative while the bulk sits at fp32 roundoff.
 Hypothesis: those are REGIME-BOUNDARY points — the warm-layer scheme's
 physical branch conditions (the dawn-reset window ``4 < rhr_sol <= 6.5``,
 the ``Qabs <= 0`` inertness test, the accumulator drain ``qac + Qabs*rdt
 <= 0``, mod_skin_coare.f90:159-185) are knife-edge comparisons, and the
-fused Mosaic kernel's fp32 rounding (op ordering, fma contraction) can
+fused kernel's fp32 rounding (op ordering, fma contraction) can
 land an input's comparison operand on the other side of the threshold
 from the XLA jit path's.  Both answers are then *self-consistent
 evaluations of the same physics* with the branch resolved differently.
@@ -16,9 +16,9 @@ on the live device, extracts every point with rel > 1e-2 on any flux, and
 classifies each against the branch-boundary distances computed in fp64.
 Output: a JSON classification summary (printed; feeds docs/PARITY.md).
 
-Run on the TPU:  python tools/fp32_tail.py        (uses the jit cache)
+Run on the GPU:  python tools/fp32_tail.py
 CPU sanity mode: python tools/fp32_tail.py --cpu  (interpret kernel: tail
-                 should be EMPTY — no Mosaic rounding to flip branches)
+                 should be EMPTY — no kernel rounding to flip branches)
 """
 
 import json
@@ -29,7 +29,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-if "--cpu" in sys.argv:
+CPU = "--cpu" in sys.argv
+if CPU:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
@@ -79,7 +80,8 @@ def main():
     @jax.jit
     def run_fused(st):
         return fused_flux_step(cfg, sst, t, q, u, v, slp, rsw, rlw,
-                               lon=lon, isecday_utc=ISD, skin_state=st)
+                               lon=lon, isecday_utc=ISD, skin_state=st,
+                               interpret=CPU)
 
     print("running jit path...", flush=True)
     ref, ns_j = run_jit(state)
